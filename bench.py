@@ -1,34 +1,87 @@
-"""Headline benchmark: all-pairs SNP-distance throughput per chip.
+"""Benchmark helpers and the headline all-pairs benchmark.
 
-Workload (BASELINE.json north star): n samples x 1 Mb genomes, streamed
-through the PRODUCTION unit — ``pairsnp_stream``'s per-block device sweep
-(split-decomposition MXU grams), device-side threshold + survivor count,
-device-side COO compaction, and the host download/assembly of the
-surviving (row, col, d, nn) entries.  The synthetic alignment has cluster
-structure tuned so ~0.5% of pairs fall under the SNP threshold, so the
-sparse-download path does real work instead of short-circuiting on zero
-survivors.
+Workload: n samples x 1 Mb genomes, streamed through the production unit —
+``pairsnp_stream``'s per-block device sweep (split-decomposition int8
+grams), device-side threshold + survivor count, device-side COO compaction,
+and the host download/assembly of the surviving (row, col, d, nn) entries.
+The synthetic alignment has cluster structure so ~0.5% of pairs fall under
+the SNP threshold, and the sparse-download path does real work.
 
 The reference publishes no numbers (BASELINE.md), so vs_baseline is the
-measured speedup over a faithful CPU realisation of the reference's
-kernel (bit-packed AND/OR + popcount over uint64 words, numpy vectorised,
-scaled to all host cores — an optimistic stand-in for the OpenMP loop in
-reference src/pairsnp.hpp:380-421).
+speedup over a numpy realisation of the reference's kernel (bit-packed
+AND/OR + popcount, ``reference_rows``), scaled to all host cores — an
+optimistic stand-in for the OpenMP loop in reference src/pairsnp.hpp:380-421.
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline", "mfu"}.
-``mfu`` is the fraction of the chip's book int8 matmul peak (v5e: 394
-TOPS) achieved by the sweep's gram MACs (5 int8 MACs/site/pair: 4
-exclusive-base channels + 1 N-mask channel, both triangles computed).
+Prints the device (platform, device_kind, count, power limit) and then ONE
+JSON line: {"metric", "value", "unit", "vs_baseline", "mfu", "device", ...}.
+``mfu`` is the fraction of the card's dense int8 peak (``INT8_PEAK_OPS``)
+reached by the sweep's gram MACs (5 int8 MACs/site/pair); it is null on a
+device that has no published peak here, such as the CPU.
+
+Also kept here, for chip_smoke.py and later benchmarks: the data
+generators, a FASTA writer, the numpy oracle, the classifier that reads
+which implementation each matrix product got in an optimized HLO module,
+and the reduction from a profiler trace to per-kernel device time.
 """
 
+import collections
 import json
 import os
+import re
+import subprocess
 import sys
 import time
 
 import numpy as np
 
-INT8_PEAK_OPS = 394e12  # TPU v5e book peak, int8 ops/s
+#: Dense int8 tensor-core peak in ops/s, keyed by ``jax.Device.device_kind``
+#: (NVIDIA H100 Tensor Core GPU data sheet, without sparsity; the rates
+#: assume the card's full power limit).
+INT8_PEAK_OPS = {
+    "NVIDIA H100 80GB HBM3": 1979e12,  # SXM5
+    "NVIDIA H100 PCIe": 1513e12,
+}
+
+
+def int8_peak_ops(platform: str, device_kind: str) -> float | None:
+    """The dense int8 peak of a device, None on the CPU; an accelerator
+    missing from INT8_PEAK_OPS is an error, never a default."""
+    if platform == "cpu":
+        return None
+    try:
+        return INT8_PEAK_OPS[device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no int8 peak recorded for device kind {device_kind!r}; "
+            "add it to bench.INT8_PEAK_OPS with its source"
+        ) from None
+
+
+def gpu_name_and_power_limit() -> str:
+    """``nvidia-smi``'s name and power limit of each card, one per line
+    ("not available" where nvidia-smi is missing or fails)."""
+    try:
+        r = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        )
+    except (OSError, subprocess.SubprocessError):
+        return "not available"
+    return r.stdout.strip() if r.returncode == 0 else "not available"
+
+
+def device_info() -> dict:
+    """What every benchmark result is labelled with."""
+    import jax
+
+    d = jax.devices()[0]
+    return {
+        "platform": d.platform,
+        "kind": d.device_kind,
+        "count": len(jax.devices()),
+        "power_limit": gpu_name_and_power_limit() if d.platform == "gpu" else None,
+    }
 
 
 def _random_planes(n, L, seed=0):
@@ -121,7 +174,196 @@ def make_clustered(n, L, cluster_size=6, max_mut=90, n_partial_cols=2048, seed=0
     )
 
 
-def bench_tpu(n=4096, L=1_000_000, iters=5, snp_threshold=200):
+
+def write_fasta(packed, path, batch=64):
+    """Write a PackedAlignment as plain IUPAC FASTA (records named by
+    ``packed.names``), unpacking ``batch`` samples at a time."""
+    lut = np.frombuffer(b"-ACMGRSVTWYHKDBN", dtype=np.uint8)
+    n, L = packed.n_seqs, packed.length
+    with open(path, "wb") as fh:
+        for s in range(0, n, batch):
+            words = np.ascontiguousarray(packed.planes[s : s + batch])
+            bits = np.unpackbits(
+                words.view(np.uint8), axis=-1, bitorder="little"
+            )[..., :L]  # [b, 4, L], bit k of plane c = allele c at site k
+            nib = bits[:, 0] | (bits[:, 1] << 1) | (bits[:, 2] << 2) | (bits[:, 3] << 3)
+            for name, row in zip(packed.names[s : s + batch], lut[nib]):
+                fh.write(b">%s\n" % name.encode())
+                fh.write(row.tobytes())
+                fh.write(b"\n")
+
+
+def write_dates(names, path, seed=7):
+    """A ``name,date`` metadata CSV with seed-chosen sampling dates over ten
+    years from 2015-01-01."""
+    from datetime import date, timedelta
+
+    days = np.random.default_rng(seed).integers(0, 3650, size=len(names))
+    base = date(2015, 1, 1)
+    with open(path, "w") as fh:
+        fh.write("name,date\n")
+        for name, d in zip(names, days):
+            fh.write(f"{name},{(base + timedelta(days=int(d))).isoformat()}\n")
+
+
+def reference_rows(planes, rows, length):
+    """(D, NN) int64 [len(rows), n] for the given rows of packed planes
+    [n, 4, W] uint32: the reference's inner loop (pairsnp.hpp:395-421) in
+    numpy — a site matches when the two samples share an allele bit,
+    D = L - matches; NN = L - popcount(N_i | N_j), N = all four bits."""
+    planes = np.asarray(planes)
+    n_all = planes[:, 0] & planes[:, 1] & planes[:, 2] & planes[:, 3]
+    D = np.empty((len(rows), planes.shape[0]), dtype=np.int64)
+    NN = np.empty_like(D)
+    for k, i in enumerate(rows):
+        shared = planes[i, 0][None, :] & planes[:, 0]
+        shared |= planes[i, 1][None, :] & planes[:, 1]
+        shared |= planes[i, 2][None, :] & planes[:, 2]
+        shared |= planes[i, 3][None, :] & planes[:, 3]
+        D[k] = length - np.bitwise_count(shared).sum(axis=1)
+        NN[k] = length - np.bitwise_count(n_all[i][None, :] | n_all).sum(axis=1)
+    return D, NN
+
+
+# ---------------------------------------------------------------------------
+# optimized-HLO reading: which implementation did each matrix product get
+# ---------------------------------------------------------------------------
+
+_INSTR = re.compile(r"^\s*(?:ROOT\s+)?%?([\w.\-]+)\s*=\s*(.+?)\s+([\w\-]+)\((.*)$")
+_COMP = re.compile(r"^\s*(?:ENTRY\s+)?%?([\w.\-]+)\s.*\{\s*$")
+_SHAPE = re.compile(r"([a-z]+\d*)\[([\d,]*)\]")
+
+
+def _args(text: str) -> list[str]:
+    """Top-level comma-separated operands of ``text`` (after the opening
+    parenthesis), up to its matching close."""
+    depth, cur, out = 0, [], []
+    for ch in text:
+        if ch in "([{":
+            depth += 1
+        elif ch in ")]}":
+            if depth == 0:
+                break
+            depth -= 1
+        if ch == "," and depth == 0:
+            out.append("".join(cur).strip())
+            cur = []
+        else:
+            cur.append(ch)
+    if "".join(cur).strip():
+        out.append("".join(cur).strip())
+    return out
+
+
+def dot_lowerings(hlo_text: str) -> list[dict]:
+    """Every matrix product of an optimized HLO module, with how it is
+    implemented: ``{"impl", "lhs", "rhs", "out"}`` where impl is
+    ``"cublas"`` (a cuBLAS/cuBLASLt GEMM custom call), ``"triton"`` (a
+    dot inside a Triton GEMM fusion) or ``"other"`` (a dot XLA emits
+    itself, e.g. a loop).  lhs/rhs/out are HLO types such as
+    ``"s8[1024,262144]"``."""
+    comps: dict[str, list[tuple[str, str, str, str]]] = {}
+    types: dict[str, str] = {}
+    cur = None
+    for line in hlo_text.splitlines():
+        m = _INSTR.match(line)
+        if m and cur is not None:
+            name, typ, op, rest = m.groups()
+            types[name] = typ
+            comps[cur].append((name, typ, op, rest))
+            continue
+        c = _COMP.match(line)
+        if c and "=" not in line.split("{")[0]:
+            cur = c.group(1)
+            comps.setdefault(cur, [])
+
+    def operand_type(arg: str) -> str:
+        sm = _SHAPE.search(arg)
+        if sm and not arg.lstrip().startswith("%"):
+            return f"{sm.group(1)}[{sm.group(2)}]"
+        ref = arg.split()[-1].lstrip("%")
+        sm = _SHAPE.search(types.get(ref, ""))
+        return f"{sm.group(1)}[{sm.group(2)}]" if sm else "?"
+
+    def first_type(typ: str) -> str:
+        sm = _SHAPE.search(typ)
+        return f"{sm.group(1)}[{sm.group(2)}]" if sm else "?"
+
+    def called(rest: str) -> list[str]:
+        return re.findall(r"(?:calls|to_apply)=%?([\w.\-]+)", rest)
+
+    triton_comps: set[str] = set()
+    out = []
+    for comp, instrs in comps.items():
+        for name, typ, op, rest in instrs:
+            if op == "custom-call" and re.search(r'custom_call_target="__cublas', rest):
+                a = _args(rest)
+                out.append({"impl": "cublas", "lhs": operand_type(a[0]),
+                            "rhs": operand_type(a[1]), "out": first_type(typ)})
+            elif op == "fusion" and re.search(r'"kind":"__triton(_nested)?_gemm', rest):
+                stack = called(rest)
+                while stack:
+                    c = stack.pop()
+                    if c not in triton_comps:
+                        triton_comps.add(c)
+                        for _n, _t, _o, r in comps.get(c, []):
+                            stack.extend(called(r))
+    for comp, instrs in comps.items():
+        for name, typ, op, rest in instrs:
+            if op == "dot":
+                a = _args(rest)
+                out.append({
+                    "impl": "triton" if comp in triton_comps else "other",
+                    "lhs": operand_type(a[0]), "rhs": operand_type(a[1]),
+                    "out": first_type(typ),
+                })
+    return out
+
+
+# ---------------------------------------------------------------------------
+# profiler trace -> device time per kernel
+# ---------------------------------------------------------------------------
+
+def is_s8_gemm(dot: dict) -> bool:
+    """Whether a ``dot_lowerings`` entry is a GEMM library call or Triton
+    GEMM fusion with int8 operands."""
+    return (dot["impl"] in ("cublas", "triton")
+            and dot["lhs"].startswith("s8[") and dot["rhs"].startswith("s8["))
+
+
+_GEMM_KERNEL = re.compile(r"gemm|cublas|cutlass|xmma|imma|matmul", re.I)
+
+
+def is_gemm_kernel(name: str) -> bool:
+    """Whether a GPU kernel name is a matrix-multiply kernel: a cuBLAS or
+    CUTLASS GEMM, or an XLA Triton GEMM fusion."""
+    return bool(_GEMM_KERNEL.search(name))
+
+
+def device_kernel_times(trace_dir: str) -> dict[str, int]:
+    """Total device nanoseconds per kernel name, summed over every GPU
+    plane of the newest ``.xplane.pb`` under ``trace_dir``."""
+    import glob
+
+    from jax.profiler import ProfileData
+
+    files = sorted(
+        glob.glob(os.path.join(trace_dir, "**", "*.xplane.pb"), recursive=True),
+        key=os.path.getmtime,
+    )
+    if not files:
+        raise FileNotFoundError(f"no .xplane.pb under {trace_dir}")
+    totals: dict[str, int] = collections.Counter()
+    for plane in ProfileData.from_file(files[-1]).planes:
+        if not plane.name.startswith("/device:GPU"):
+            continue
+        for line in plane.lines:
+            for ev in line.events:
+                totals[ev.name] += int(ev.duration_ns)
+    return dict(totals)
+
+
+def bench_device(n=4096, L=1_000_000, iters=5, snp_threshold=200):
     """Times the full production streaming unit (what ``tracs-tpu
     distance`` runs per row block): device sweep -> device threshold +
     survivor count -> device COO compaction -> host download of the
@@ -129,24 +371,21 @@ def bench_tpu(n=4096, L=1_000_000, iters=5, snp_threshold=200):
     by construction, so the sparse-download branch and the NN gathers are
     inside the timed region.  Variant-site compaction is off: every column
     of the synthetic alignment is variant (random base genomes), so the
-    scan would find nothing to drop — real alignments are mostly conserved
-    and run 10-100x faster than this worst case (ops/packing.py).
+    scan would find nothing to drop.
 
     row_block < n engages the prefix-triangle schedule (each row block
-    sweeps only columns >= its first row — the lower triangle is never
-    computed), which measured faster than the one-shot full square on v5e
-    (scripts/triangle_experiment.py); ~1024-row blocks are the sweet spot
-    (29.4M pairs/s at n=4096 vs 27.1M at rb=2048).
+    sweeps only columns >= its first row).  The row block defaults to
+    max(1024, min(2048, n // 4)); BENCH_RB overrides it.  Neither was
+    tuned on the H100 (not measured).
     """
-    from tracs_tpu.ops.pairsnp import pairsnp_stream
+    from tracs_tpu.ops.pairsnp import pairsnp_stream, schedule_mac_pairs
 
+    info = device_info()
+    peak = int8_peak_ops(info["platform"], info["kind"])
     # scale cluster size so within-cluster (surviving) pairs stay ~0.5% of
     # all pairs at any n: (cs-1)/(n-1) ~ 0.005
     cluster_size = max(6, round(0.005 * n) + 1)
     packed = make_clustered(n, L, cluster_size=cluster_size)
-    # rb ~1024 is the measured sweet spot: smaller blocks cut prefix MACs
-    # but narrow gram outputs tank the achievable dot rate (85 TOPS at
-    # 1024-wide vs 260 at 4096-wide) and add per-block round trips
     row_block = int(os.environ.get("BENCH_RB", str(max(1024, min(2048, n // 4)))))
 
     def consume():
@@ -158,107 +397,80 @@ def bench_tpu(n=4096, L=1_000_000, iters=5, snp_threshold=200):
         return pairs
 
     # Warmup 1: upload + compile.  Warmup 2: settle any state-dependent
-    # shape variants (adaptive extraction capacities are sticky per shape
-    # since r5, but a recompile here is untimed insurance, not a 30 s hole
-    # in the measurement like BENCH_r04's).  Each consume() downloads every
-    # block's packed survivors, so it is device-synchronous by construction.
+    # shape variants (extraction capacities are sticky per shape).  Each
+    # consume() downloads every block's packed survivors, so it is
+    # device-synchronous by construction.
     t0 = time.time()
     consume()
     print(f"# warmup(upload+compile): {time.time() - t0:.1f}s", file=sys.stderr)
     t0 = time.time()
     consume()
     print(f"# warmup(settle): {time.time() - t0:.3f}s", file=sys.stderr)
-    # Per-sweep wall times with absolute timestamps: a single slow sweep
-    # (link stall, background transfer, recompile) must be visible in the
-    # record, not silently averaged into the headline.  Median is the
-    # headline (robust to one bad sweep); min bounds the chip's capability.
+    # per-sweep wall times with absolute timestamps, so one slow sweep is
+    # visible in the record; the median is the headline
     sweep_s = []
     for k in range(iters):
         t0 = time.time()
         survivors = consume()
         sweep_s.append(time.time() - t0)
         print(
-            f"# sweep {k} @{time.strftime('%H:%M:%S')}: {sweep_s[-1]:.3f}s",
+            f"# sweep {k} @{time.strftime('%H:%M:%S')}: {sweep_s[-1]}s",
             file=sys.stderr,
         )
     dt = float(np.median(sweep_s))
-    dt_min = min(sweep_s)
-    print(
-        f"# sweeps: median {dt:.3f}s min {dt_min:.3f}s "
-        f"all {[round(s, 3) for s in sweep_s]}",
-        file=sys.stderr,
-    )
     rate = n * n / dt
-    # 5 int8 MACs/site/pair (4 exclusive-base channels + 1 N channel);
-    # 2 ops per MAC.  MACs actually executed by the schedule in effect —
-    # NOT the nominal n^2 square, which would overstate utilisation;
-    # schedule_mac_pairs reads the same prefix/bucketing logic the kernel
-    # runs (incl. TRACS_TPU_TRIANGLE=0 falling back to full-width blocks).
-    from tracs_tpu.ops.pairsnp import schedule_mac_pairs
-
+    # 5 int8 MACs/site/pair (4 exclusive-base channels + 1 N channel), 2
+    # ops per MAC, over the MACs the schedule in effect actually executes
     triangle = os.environ.get("TRACS_TPU_TRIANGLE", "1") != "0"
     mac_pairs = schedule_mac_pairs(n, row_block, triangle=triangle)
-    mfu = (2.0 * 5 * mac_pairs * L / dt) / INT8_PEAK_OPS
-    frac = survivors / (n * (n - 1) / 2)
+    mfu = None if peak is None else (2.0 * 5 * mac_pairs * L / dt) / peak
     print(
-        f"# stream unit: {dt:.3f}s/sweep, {survivors} survivors "
-        f"({100 * frac:.2f}% of pairs) -> {rate:,.0f} pairs/s, "
-        f"MFU {100 * mfu:.1f}% of {INT8_PEAK_OPS / 1e12:.0f} TOPS int8 peak",
+        f"# stream unit: {dt}s/sweep, {survivors} survivors -> {rate} pairs/s",
         file=sys.stderr,
     )
-    return rate, mfu, dt, dt_min
+    return rate, mfu, dt, min(sweep_s), info
 
 
 def bench_cpu_reference(n_rows=8, n=256, L=1_000_000):
-    """Numpy realisation of the reference inner loop (pairsnp.hpp:395-421):
-    4x AND + 3x OR + popcount per uint64 word, row-blocked."""
+    """Host pairs/s of ``reference_rows`` on random planes, scaled to all
+    cores (an optimistic linear-scaling OpenMP stand-in)."""
     rng = np.random.default_rng(0)
-    W64 = (L + 63) // 64
-    planes = rng.integers(0, 2**63, size=(n, 4, W64), dtype=np.uint64)
-
+    planes = rng.integers(0, 2**32, size=(n, 4, (L + 31) // 32), dtype=np.uint32)
     t0 = time.time()
-    for i in range(n_rows):
-        shared = planes[i, 0][None, :] & planes[:, 0]
-        shared |= planes[i, 1][None, :] & planes[:, 1]
-        shared |= planes[i, 2][None, :] & planes[:, 2]
-        shared |= planes[i, 3][None, :] & planes[:, 3]
-        d = L - np.bitwise_count(shared).sum(axis=1)
-        nmask_i = planes[i, 0] & planes[i, 1] & planes[i, 2] & planes[i, 3]
-        nmask = planes[:, 0] & planes[:, 1] & planes[:, 2] & planes[:, 3]
-        nn = L - np.bitwise_count(nmask_i[None, :] | nmask).sum(axis=1)
+    reference_rows(planes, range(n_rows), L)
     dt = time.time() - t0
     single_thread = n_rows * n / dt
     ncores = os.cpu_count() or 1
-    rate = single_thread * ncores  # optimistic linear-scaling OpenMP stand-in
+    rate = single_thread * ncores
     print(
-        f"# cpu reference: {single_thread:,.0f} pairs/s/core x {ncores} cores "
-        f"= {rate:,.0f} pairs/s",
+        f"# cpu reference: {single_thread} pairs/s/core x {ncores} cores "
+        f"= {rate} pairs/s",
         file=sys.stderr,
     )
     return rate
 
 
 def main():
-    # n=4096 (vs round 1's 1024): the achievable dot rate rises with gram
-    # output size (85 / 202 / 260 TOPS at 1024/2048/4096-wide int8 dots,
-    # measured) and the prefix-triangle schedule amortises better at
-    # larger n/row_block; the workload definition (streamed all-pairs +
-    # COO over 1 Mb genomes, ~0.5% survivors) is unchanged, so pairs/s
-    # stays comparable across rounds.
     n = int(os.environ.get("BENCH_N", "4096"))
     L = int(os.environ.get("BENCH_L", "1000000"))
-    tpu_rate, mfu, dt_med, dt_min = bench_tpu(n=n, L=L)
+    rate, mfu, dt_med, dt_min, info = bench_device(n=n, L=L)
+    print(
+        f"# device: {info['platform']} {info['kind']} x{info['count']}, "
+        f"power limit {info['power_limit']}",
+        file=sys.stderr,
+    )
     cpu_rate = bench_cpu_reference(n=n, L=L)
     print(
         json.dumps(
             {
-                "metric": "pairwise comparisons/sec/chip (streamed all-pairs SNP dist + COO, 1Mb genomes)",
-                "value": round(tpu_rate, 1),
+                "metric": "pairwise comparisons/sec/device (streamed all-pairs SNP dist + COO, 1Mb genomes)",
+                "value": rate,
                 "unit": "pairs/s",
-                "vs_baseline": round(tpu_rate / cpu_rate, 2),
-                "mfu": round(mfu, 4),
-                "sweep_s_median": round(dt_med, 4),
-                "sweep_s_min": round(dt_min, 4),
+                "vs_baseline": rate / cpu_rate,
+                "mfu": mfu,
+                "sweep_s_median": dt_med,
+                "sweep_s_min": dt_min,
+                "device": info,
             }
         )
     )

@@ -1,12 +1,11 @@
 // tracs_tpu native host-ingest library.
 //
-// The TPU does the all-pairs math; this library keeps the *host* side fast:
+// The accelerator does the all-pairs math; this library keeps the *host* side fast:
 //   * FASTA parsing + IUPAC bit-plane packing (the reference spends its
 //     ingest time in kseq + per-character bitset stores, src/pairsnp.hpp:62-220).
 //     Plain (uncompressed) files take an mmap + OpenMP-over-records path
-//     with a branchless 256-entry nibble LUT pack — multi-GB/s, found
-//     necessary when the 10 GB north-star ingest measured ~20 MB/s on the
-//     branchy single-stream loop; gzip streams keep the single-pass reader
+//     with a branchless 256-entry nibble LUT pack, in place of a branchy
+//     single-stream loop; gzip streams keep the single-pass reader
 //     (decompression serialises anyway) with the same branchless inner loop
 //   * htsbox pileup text parsing into [L, 4] count matrices (the reference
 //     parses per-line in Python, tracs/align.py:449-474 — its slowest host loop)
@@ -860,7 +859,7 @@ extern "C" {
 // ``cap`` neighbours are marked in ovf_mark (caller resolves those rare
 // cases in Python and subtracts the rejects); they are counted as kept here.
 // Replaces ~10 full-array numpy passes over the flat SNP vectors, which
-// dominated the filter at 10^8 SNPs (measured 23s of a 31s batch).
+// dominated the filter at 10^8 SNPs.
 void tn_filter_windows(const int64_t* pos, int64_t n_snps,
                        const int64_t* seg_bounds, int64_t n_pairs,
                        const int64_t* w,
@@ -903,8 +902,7 @@ void tn_filter_windows(const int64_t* pos, int64_t n_snps,
 // One streaming pass over the packed [n, 4, W] planes producing every
 // derived tensor the split layout and the compact 2-bit upload path need.
 // The former numpy build ran ~10 separate broadcasted passes (~40 GB of
-// memory traffic at 10k x 1 Mb, ~105 s measured on the north-star run);
-// here each plane word is read once and all outputs fall out of the same
+// memory traffic at 10k x 1 Mb); here each plane word is read once and all outputs fall out of the same
 // registers.  Semantics mirror ops/packing.py exactly:
 //   all4   = A & C & G & T                       (N mask)
 //   excl   = plane & ~all4                       (N-exclusive singletons)

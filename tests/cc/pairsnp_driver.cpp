@@ -1,6 +1,6 @@
 // Differential-test driver: compiles the READ-ONLY reference pairsnp kernel
 // (including filter_recomb) against boost stand-ins and prints its sparse
-// COO output, so tests can byte-compare the TPU kernels with the actual
+// COO output, so tests can byte-compare the device kernels with the actual
 // reference C++ (reference src/pairsnp.hpp:320-458, 223-318).
 //
 //   g++ -O2 -std=c++17 -I tests/cc/boost_stub -I /root/reference/src \

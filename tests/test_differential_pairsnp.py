@@ -130,6 +130,6 @@ def test_reference_golden_filter_pattern(driver_bin):
 
 def test_golden_filter_pattern_without_compiler():
     # the golden itself must hold even where the differential driver can't
-    # build (pure-Python/TPU path)
+    # build (pure-Python/JAX path)
     _names, rows = run_ours([GOLDEN_ALN], 10**6, True)
     assert [f for _r, _c, _d, f, _nn in rows] == [2, 2, 4]

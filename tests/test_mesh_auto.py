@@ -3,7 +3,7 @@
 best_mesh_shape's policy: all-dp while triangle stripes stay fat enough
 (>= _MIN_STRIPE_ROWS rows) to hide ring traffic; below that, devices go
 to sp (position shards), capped so a shard never drops under 8 packed
-words; shapes whose ring stripes would blow RING_STRIPE_BYTES are avoided
+words; shapes whose ring stripes would blow the ring-stripe budget are avoided
 when a feasible shape exists.  RingCoo.fits additionally accounts the
 resident operand bytes when given the word count, so long-genome runs
 fall back to the block-streamed ShardedSweep instead of OOMing mid-ring.
@@ -77,12 +77,12 @@ def test_ring_fits_is_length_aware(monkeypatch):
     assert ap.RingCoo.fits(64, mesh)
     # a genome long enough that resident operands alone exceed the device
     # budget refuses the ring — 2*5 planes * 32 rows * w * 4 B > budget
-    monkeypatch.setattr(ap, "_DEVICE_HBM_BYTES", 1 << 20)
-    monkeypatch.setattr(ap, "_RING_STRIPE_BYTES", 1 << 30)
+    monkeypatch.setenv("TRACS_TPU_DEVICE_HBM_BYTES", str(1 << 20))
+    monkeypatch.setenv("TRACS_TPU_RING_BYTES", str(1 << 30))
     assert ap.RingCoo.fits(64, mesh)  # still no length: only stripes checked
     assert not ap.RingCoo.fits(64, mesh, n_words=10_000)
     # a short genome at the same budget is fine once chunk temps are small
-    monkeypatch.setattr("tracs_tpu.ops.pairsnp._CHUNK_BYTES_BUDGET", 1 << 16)
+    monkeypatch.setenv("TRACS_TPU_CHUNK_BYTES", str(1 << 16))
     assert ap.RingCoo.fits(64, mesh, n_words=64)
 
 
@@ -104,7 +104,7 @@ def test_operand_budget_falls_back_to_sweep(rng, monkeypatch):
         ap.RingCoo, "__init__",
         lambda self, *a, **k: (made_ring.append(1), real_init(self, *a, **k))[1],
     )
-    monkeypatch.setattr(ap, "_DEVICE_HBM_BYTES", 1)  # operands never fit
+    monkeypatch.setenv("TRACS_TPU_DEVICE_HBM_BYTES", "1")  # operands never fit
     over = pairsnp(
         [pack_sequences(seqs)], dist=250, row_block=5, mesh=make_mesh(4, 2)
     )

@@ -59,8 +59,10 @@ def test_scaling_report_smoke(tmp_path):
         "scripts", "scaling_report.py",
     )
     env = dict(os.environ)
-    env["TRACS_TPU_FORCE_PLATFORM"] = "cpu"
-    env["TRACS_TPU_CPU_DEVICES"] = "4"
+    env["JAX_PLATFORMS"] = "cpu"
+    env["XLA_FLAGS"] = (
+        env.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=4"
+    ).strip()
     r = subprocess.run(
         [sys.executable, script, "--n", "12", "--L", "500", "--iters", "1"],
         capture_output=True, text=True, timeout=600, env=env,

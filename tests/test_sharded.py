@@ -117,7 +117,7 @@ def test_ring_hbm_budget_falls_back_to_sweep(rng, monkeypatch):
         ap.RingCoo, "__init__",
         lambda self, *a, **k: (made_ring.append(1), real_init(self, *a, **k))[1],
     )
-    monkeypatch.setattr(ap, "_RING_STRIPE_BYTES", 1)  # force over-budget
+    monkeypatch.setenv("TRACS_TPU_RING_BYTES", "1")  # force over-budget
     over = pairsnp(
         [pack_sequences(seqs)], dist=120, row_block=5, mesh=mesh
     )
@@ -221,12 +221,11 @@ def test_ring_and_stream_with_forced_chunking(rng, monkeypatch):
     # change any value.  This is the memory-bounded big-shape sweep check
     # scaled down: the same planner (plan_chunks) bounds the north-star
     # 1250-sample x 1 Mb per-device blocks.
-    import tracs_tpu.ops.pairsnp as pp
     from tracs_tpu.ops.pairsnp import pairsnp, plan_chunks
 
     seqs = _random_seqs(rng, 13, 4001)
     D0, NN0 = snp_distance_dense(pack_sequences(seqs))
-    monkeypatch.setattr(pp, "_CHUNK_BYTES_BUDGET", 1 << 12)
+    monkeypatch.setenv("TRACS_TPU_CHUNK_BYTES", str(1 << 12))
     wc, n_chunks = plan_chunks(26, 5, (4001 + 31) // 32)
     assert n_chunks > 1  # the budget really does force chunking
     D1, NN1 = sharded_snp_distance(pack_sequences(seqs), make_mesh(4, 2))
@@ -246,12 +245,13 @@ def test_plan_chunks_budget_accounting():
     # north-star shape: 10k samples over 8 dp ranks -> 1250-row blocks vs
     # 1250-row DB shards, 1 Mb genomes.  The planned chunk's materialised
     # int8 channels (2 bytes/site/channel/row) must fit the budget.
-    from tracs_tpu.ops.pairsnp import _CHUNK_BYTES_BUDGET, plan_chunks
+    from tracs_tpu.ops.pairsnp import plan_chunks
+    from tracs_tpu.runtime.memory import memory_budgets
 
     rows, channels = 2 * 1250, 5
     W = (1_000_000 + 31) // 32
     wc, n_chunks = plan_chunks(rows, channels, W)
-    assert wc * 32 * rows * channels * 2 <= _CHUNK_BYTES_BUDGET
+    assert wc * 32 * rows * channels * 2 <= memory_budgets().chunk
     assert n_chunks == -(-W // wc)
     # and chunks stay lane-aligned
     assert wc % 256 == 0 or wc == W or wc <= 256

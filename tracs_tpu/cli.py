@@ -41,13 +41,15 @@ def main(argv=None):
         func = args.func
     except AttributeError:
         parser.error("Too few inputs. For help, run tracs-tpu --help")
-    # lazy check (never forces backend init): warn early if imports
-    # already initialised jax on CPU despite an explicit accelerator ask
+    # refuse a run that landed on the CPU when JAX_PLATFORMS asked for an
+    # accelerator (distance checks before its sweep; this catches the rest)
     import tracs_tpu
 
-    tracs_tpu.warn_if_platform_fell_back()
-    rc = func(args)
-    tracs_tpu.warn_if_platform_fell_back()
+    try:
+        rc = func(args)
+        tracs_tpu.check_platform()
+    except tracs_tpu.PlatformFallbackError as e:
+        parser.exit(2, f"tracs-tpu: error: {e}\n")
     if isinstance(rc, int) and rc:  # doctor-style preflights signal via exit code
         raise SystemExit(rc)
     return

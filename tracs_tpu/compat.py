@@ -10,7 +10,7 @@ Code written against that interface works unchanged against this module:
     import tracs_tpu.compat as TRACS
 
 Signatures, argument names, return structures and numerical semantics match;
-the implementations are the TPU-native kernels.
+the implementations are this package's device kernels.
 """
 
 from __future__ import annotations

@@ -13,7 +13,7 @@
   threshold are zeroed, or clamped up to the threshold when ``keep`` and the
   raw count is positive.
 
-TPU-first notes: the fit is a fixed-shape ``lax.while_loop`` over rows padded
+Design notes: the fit is a fixed-shape ``lax.while_loop`` over rows padded
 to a power-of-two bucket (zero rows contribute exactly 0 to every digamma /
 ratio sum, so padding is free), in float64 on the CPU backend (the golden
 tolerances need f64; this is a once-per-reference-genome fit, not a hot

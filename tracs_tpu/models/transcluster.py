@@ -13,8 +13,8 @@ semantics of the reference C++ kernel (reference src/transcluster.hpp):
                              the requested precision, k capped at 10000
                              (transcluster.hpp:191-238).
 
-TPU-first redesign
-------------------
+Vectorised redesign
+-------------------
 The reference memoises per-(N, k, delta) log-probs in hash maps and loops
 pair-by-pair.  Here the unique (N, delta) pairs are batched into fixed-shape
 arrays and the k-loop becomes ONE vectorised ``lax.while_loop`` whose body is
@@ -26,8 +26,9 @@ satisfies the recurrence  I(M) = delta^M/(M! (lamb+beta)) + I(M-1)/(lamb+beta)
 carried in log space, so no O(N+k) inner sum is re-evaluated per k (the
 reference recomputes it each k: transcluster.hpp:152-158).
 
-Precision: float64 on the JAX CPU backend (TPUs have no native f64; this is a
-tiny scalar workload — the heavy all-pairs SNP kernel stays on the TPU).
+Precision: float64 on the JAX CPU backend.  This is a small scalar workload
+next to the all-pairs SNP kernel on the accelerator; whether it runs faster
+in f64 on the GPU is not measured yet.
 
 delta == 0 quirk: the reference computes ``upper_bound_E`` with
 ``log(lamb*delta) = -inf`` and ``0 * -inf = NaN``, so ``diff_bound`` is NaN

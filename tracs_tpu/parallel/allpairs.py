@@ -6,7 +6,7 @@ signed 5-channel matmul) with the same word-chunk HBM budgeting as the
 single-device sweep:
 
 1. **ShardedSweep** — the streaming engine behind ``tracs-tpu distance``
-   on a mesh (the TPU-native replacement for the reference's OpenMP row
+   on a mesh (the device-mesh replacement for the reference's OpenMP row
    loop, src/pairsnp.hpp:380-432).  DB samples are sharded over ``dp``
    (each device owns the *columns* of every block matrix for its sample
    shard) and packed words over ``sp``; each row block is replicated over
@@ -37,7 +37,7 @@ non-commutative part of the pipeline and run in the dedicated filter pass
 Multi-host: the same code over a mesh spanning processes
 (jax.distributed.initialize via parallel/multihost.py); ``_put`` switches
 to make_array_from_callback so each host materialises only its addressable
-shards.  dp traffic rides DCN across hosts, sp stays on ICI.
+shards.
 """
 
 from __future__ import annotations
@@ -60,6 +60,7 @@ from tracs_tpu.ops.pairsnp import (
     plan_chunks,
 )
 from tracs_tpu.parallel.mesh import make_mesh, pad_to, to_host
+from tracs_tpu.runtime.memory import memory_budgets
 
 
 def _put(arr: np.ndarray, sharding: NamedSharding):
@@ -224,19 +225,6 @@ def _ring_coo(excl, nmask, part, cnt_blk, cnt_all, *, n_dp, wc, n_chunks, L,
     return fn(excl, nmask, part, cnt_blk, cnt_all)
 
 
-# per-device byte budget for RingCoo's stripe tensors (m/n grams + D/NN,
-# each [B, n_pad] int32).  Above this the engine would risk HBM OOM on runs
-# that stream fine block-by-block, so pairsnp_stream falls back to
-# ShardedSweep (which holds only one row block of output at a time).
-# (Shared with the auto-mesh planner: parallel/mesh.py::RING_STRIPE_BYTES.)
-_RING_STRIPE_BYTES = int(os.environ.get("TRACS_TPU_RING_BYTES", 4 << 30))
-
-# whole-device HBM the ring may assume for operands + stripes + the gram
-# chunk temps (ops/pairsnp.py::_CHUNK_BYTES_BUDGET); v5e has 16 GB — leave
-# headroom for XLA scratch and the packed-survivor arrays
-_DEVICE_HBM_BYTES = int(os.environ.get("TRACS_TPU_DEVICE_HBM_BYTES", 14 << 30))
-
-
 class RingCoo:
     """Work-efficient mesh engine for streamed SELF all-pairs: each device
     holds one resident row stripe, the triangle ring meets every block pair
@@ -284,14 +272,13 @@ class RingCoo:
         operands and the gram chunk-temp budget are accounted too, so a
         long-genome run falls back to the block-streamed ShardedSweep
         instead of dispatching a ring destined to OOM mid-sweep."""
+        budgets = memory_budgets()
         stripes = cls.stripe_bytes(n, mesh)
-        if stripes > _RING_STRIPE_BYTES:
+        if stripes > budgets.ring_stripe:
             return False
         if n_words is not None:
-            from tracs_tpu.ops.pairsnp import _CHUNK_BYTES_BUDGET
-
-            total = stripes + cls.operand_bytes(n, mesh, n_words) + _CHUNK_BYTES_BUDGET
-            if total > _DEVICE_HBM_BYTES:
+            total = stripes + cls.operand_bytes(n, mesh, n_words) + budgets.chunk
+            if total > budgets.device:
                 return False
         return True
 

@@ -1,7 +1,7 @@
 """Device-mesh helpers: sample-block (dp) x genome-position (sp) meshes.
 
 The reference's parallelism is an OpenMP parallel-for over pair-matrix rows
-on one CPU (reference src/pairsnp.hpp:380-432).  The TPU-native equivalents:
+on one CPU (reference src/pairsnp.hpp:380-432).  The device-mesh equivalents:
 
 * ``dp`` — sample-block data parallelism: each device owns a block of
   samples; blocks rotate around a ring (``ppermute``) so every pair of
@@ -13,7 +13,8 @@ on one CPU (reference src/pairsnp.hpp:380-432).  The TPU-native equivalents:
   axis for very long or many-reference alignments.
 
 Multi-host: ``jax.distributed.initialize()`` + the same mesh spanning all
-processes; dp rides DCN across hosts, sp stays on ICI within a slice.
+processes.  The cards of one host are joined all to all (NVLink), so
+``make_mesh`` takes devices in list order: no placement beats another.
 """
 
 from __future__ import annotations
@@ -25,17 +26,12 @@ import jax
 import numpy as np
 from jax.sharding import Mesh
 
-# Per-device byte budget for the triangle-ring engine's stripe tensors
-# (m/n grams + assembled D/NN, each [B, n_pad] int32).  Shared with
-# parallel/allpairs.py::RingCoo — above it the ring risks HBM OOM on runs
-# that stream fine block-by-block, so both the auto-mesh planner and the
-# engine selection treat it as the feasibility line.
-RING_STRIPE_BYTES = int(os.environ.get("TRACS_TPU_RING_BYTES", 4 << 30))
+from tracs_tpu.runtime.memory import memory_budgets
 
 # Ring arithmetic intensity: a ring step computes a [B, B] gram (B*5*32
 # MACs per rotated operand word of 4 bytes => ~8*B int8 MACs/byte, genome-
 # length independent).  Stripes thinner than this cannot hide the ring's
-# operand rotation behind their own MXU work, so the planner concedes
+# operand rotation behind their own GEMM work, so the planner concedes
 # devices to sp instead of slicing dp thinner.
 _MIN_STRIPE_ROWS = int(os.environ.get("TRACS_TPU_MESH_MIN_STRIPE", "512"))
 
@@ -56,14 +52,15 @@ def best_mesh_shape(n_devices: int, n_samples: int | None = None, n_words: int |
     more dp strictly lowers HBM pressure.  Devices are conceded to sp
     (packed-word shards) when stripes would drop below _MIN_STRIPE_ROWS
     rows — too thin to hide the ring's operand rotation behind their own
-    MXU work (per-step intensity ~ 8*B MACs/rotated byte, independent of
+    GEMM work (per-step intensity ~ 8*B MACs/rotated byte, independent of
     genome length) — which covers both the scarce-sample case and
     medium-n long-genome runs where position sharding cuts ring traffic.
 
     ``n_words`` (packed word count, ceil(L/32)) bounds the concession:
     sp never exceeds n_words // 8 (a position shard below 8 words is pure
     padding — the engines pad words to 8*sp), and shapes whose ring
-    stripes would blow RING_STRIPE_BYTES are avoided when any feasible
+    stripes would blow the ring-stripe budget
+    (runtime/memory.py) are avoided when any feasible
     shape exists (none exists at very large n: then all-dp minimises the
     stripes and the streaming engine takes over from the ring anyway).
     """
@@ -79,8 +76,9 @@ def best_mesh_shape(n_devices: int, n_samples: int | None = None, n_words: int |
         return -(-max(n_samples, 1) // dp) * dp
 
     cands = [d for d in _divisors(n_devices) if n_devices // d <= sp_cap]
+    ring_budget = memory_budgets().ring_stripe
     feasible = [
-        d for d in cands if 16 * n_pad(d) * (n_pad(d) // d) <= RING_STRIPE_BYTES
+        d for d in cands if 16 * n_pad(d) * (n_pad(d) // d) <= ring_budget
     ]
     pool = feasible or cands
     fat = [d for d in pool if -(-n_samples // d) >= _MIN_STRIPE_ROWS]
@@ -108,7 +106,7 @@ def to_host(x) -> np.ndarray:
 
     A jax.Array whose shards live on other processes' devices is not fully
     addressable, so ``np.asarray`` raises; gather it to every host first
-    (ICI/DCN allgather via multihost_utils).  Fully-addressable arrays —
+    (allgather via multihost_utils).  Fully-addressable arrays —
     everything in a single-process run, and replicated arrays in any run —
     take the plain zero-copy download."""
     if isinstance(x, jax.Array) and not x.is_fully_addressable:

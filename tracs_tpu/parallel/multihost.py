@@ -3,8 +3,8 @@
 The reference has no distributed backend at all (SURVEY.md §2.3); scaling
 past one host here is standard JAX SPMD: every host runs the same program,
 ``jax.distributed.initialize`` wires the processes together, and the dp x sp
-mesh spans all devices — dp (sample-block ring) crosses hosts over DCN,
-sp (position shards) stays on ICI within each slice.
+mesh spans all devices — dp (sample-block ring) crosses hosts over the
+network, sp (position shards) stays within a host.
 
 Typical launch (per host):
 

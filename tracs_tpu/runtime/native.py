@@ -2,17 +2,20 @@
 
 The reference keeps its hot host loops in C++ (src/pairsnp.hpp loader,
 src/kseq.h).  Here the equivalents — gzip FASTA parsing + bit-plane packing
-and pileup text parsing — live in src/tracs_native.cpp, compiled to
-libtracs_native.so and called through ctypes (no pybind11 in this image).
-Every entry point has a numpy fallback so the framework works unbuilt.
+and pileup text parsing — live in src/tracs_native.cpp, compiled with g++ on
+first use to src/libtracs_native-<source hash>.so (never committed: it is
+built for the host CPU) and called through ctypes.  Every entry point has a
+numpy fallback so the framework works unbuilt.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import logging
 import os
 import subprocess
+import tempfile
 import threading
 
 import numpy as np
@@ -21,52 +24,74 @@ _LOCK = threading.Lock()
 _LIB: "ctypes.CDLL | None | bool" = None  # None = not tried, False = unavailable
 
 _SRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "src")
-_LIB_PATH = os.path.join(_SRC_DIR, "libtracs_native.so")
+_SRC_PATH = os.path.join(_SRC_DIR, "tracs_native.cpp")
+_BUILD_FLAGS = [
+    "-O3", "-march=native", "-shared", "-fPIC", "-fopenmp", "-std=c++17",
+]
+
+#: (path, built in this process) of the library get_lib() loaded, if any
+LOADED: tuple[str, bool] | None = None
 
 
-def _build() -> bool:
-    cpp = os.path.join(_SRC_DIR, "tracs_native.cpp")
-    if not os.path.exists(cpp):
-        return False
-    cmd = [
-        "g++", "-O3", "-march=native", "-shared", "-fPIC", "-fopenmp",
-        "-std=c++17", cpp, "-o", _LIB_PATH, "-lz",
-    ]
+def lib_path() -> str | None:
+    """Where the library built from the current source lives: the file name
+    carries a hash of the source and the build flags, so an edited source
+    (or a checkout that set arbitrary mtimes) never loads a stale build.
+    None when the source is missing."""
+    try:
+        with open(_SRC_PATH, "rb") as fh:
+            src = fh.read()
+    except OSError:
+        return None
+    digest = hashlib.sha256(src + " ".join(_BUILD_FLAGS).encode()).hexdigest()
+    return os.path.join(_SRC_DIR, f"libtracs_native-{digest[:16]}.so")
+
+
+def _build(path: str) -> bool:
+    """Compile the source into ``path``.  The compiler writes a private
+    temporary file that is renamed into place, so concurrent builders (test
+    workers, processes of one launch) never load a half-written library:
+    the last rename wins and every rename publishes a complete file."""
+    fd, tmp = tempfile.mkstemp(dir=_SRC_DIR, prefix=".libtracs_native-", suffix=".so")
+    os.close(fd)
+    cmd = ["g++", *_BUILD_FLAGS, _SRC_PATH, "-o", tmp, "-lz"]
     try:
         r = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
         if r.returncode != 0:
             logging.debug("native build failed: %s", r.stderr[-2000:])
             return False
+        os.replace(tmp, path)
         return True
-    except Exception as e:  # pragma: no cover - toolchain missing
+    except (OSError, subprocess.SubprocessError) as e:  # toolchain missing
         logging.debug("native build failed: %s", e)
         return False
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def get_lib():
     """Return the loaded CDLL, building it on first use; None if unavailable."""
-    global _LIB
+    global _LIB, LOADED
     with _LOCK:
         if _LIB is False:
             return None
         if _LIB is not None:
             return _LIB
-        if not os.path.exists(_LIB_PATH):
-            src = os.path.join(_SRC_DIR, "tracs_native.cpp")
-            if not (os.path.exists(src) and _build()):
-                _LIB = False
-                return None
-        # rebuild if source is newer than the library
-        src = os.path.join(_SRC_DIR, "tracs_native.cpp")
-        if os.path.exists(src) and os.path.getmtime(src) > os.path.getmtime(_LIB_PATH):
-            _build()
+        path = lib_path()
+        built = False
+        if path is not None and not os.path.exists(path):
+            built = _build(path)
         try:
-            lib = ctypes.CDLL(_LIB_PATH)
+            lib = ctypes.CDLL(path) if path is not None else None
         except OSError:
+            lib = None
+        if lib is None:
             _LIB = False
             return None
         _configure(lib)
         _LIB = lib
+        LOADED = (path, built)
         return lib
 
 

@@ -7,7 +7,7 @@ installed — a ``sourmashDB.sbt.zip`` SBT index for ``sourmash gather``.
 Inputs are either many fasta paths or a single ``path,prefix`` CSV list
 file (reference build_db.py:123-132).
 
-TPU-native differences: every database also embeds native FracMinHash
+Differences from the reference: every database also embeds native FracMinHash
 sketches (tracs_tpu/sketch.py), so ``align`` works with no sourmash binary
 at all; genomes are streamed straight into the archive (no temp-dir
 copies); and ``summary.tsv`` rows are newline-separated (the reference
@@ -25,8 +25,6 @@ import subprocess
 import tempfile
 from pathlib import Path
 from zipfile import ZIP_STORED, ZipFile
-
-from joblib import Parallel, delayed
 
 from tracs_tpu.io.external import require_tool, run_sketch
 from tracs_tpu.utils import add_loglevel_arg, setup_logging
@@ -103,6 +101,8 @@ def _sourmash_index(genomes: list[tuple[Path, str]], workdir: Path, *,
     (command contracts: ``sourmash sketch dna`` via io.external.run_sketch,
     then ``sourmash index``)."""
     require_tool("sourmash")
+    from joblib import Parallel, delayed
+
     sig_dir = Path(tempfile.mkdtemp(dir=workdir))
     Parallel(n_jobs=n_cpu)(
         delayed(run_sketch)(

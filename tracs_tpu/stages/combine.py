@@ -24,8 +24,6 @@ import sys
 from collections import defaultdict
 from pathlib import Path
 
-from joblib import Parallel, delayed
-
 from tracs_tpu.io.fasta import read_fasta
 from tracs_tpu.utils import add_loglevel_arg, setup_logging
 
@@ -140,6 +138,8 @@ def _coverage_by_key(directories: list[Path], n_cpu: int) -> dict:
             name = pileup.name
             ref = name[name.find("ref_") + 4: name.rfind("_pileup")]
             jobs.append((sample, ref, pileup))
+    from joblib import Parallel, delayed
+
     stats = Parallel(n_jobs=n_cpu)(
         delayed(pileup_coverage)(path) for _s, _r, path in jobs
     )
@@ -187,6 +187,8 @@ def combine(args):
         sample = directory.resolve().name
         for aln in sorted(directory.glob(_ALIGN_GLOB)):
             by_ref[ref_of_alignment(aln)].append((sample, aln))
+
+    from joblib import Parallel, delayed
 
     frac_n = {}
     for part in Parallel(n_jobs=args.n_cpu)(

@@ -3,9 +3,10 @@
 CLI/CSV parity with reference tracs/distance.py (flags distance.py:15-131,
 CSV schema distance.py:156-158: ``sampleA,sampleB,date difference,
 SNP distance,transmission distance,expected K,filtered SNP distance,
-sites considered,MSA file``), with the compute redesigned for TPU:
-the C++ pairsnp call becomes the MXU channel-gram kernel and the
-transcluster hash-memoised loop becomes a batched vectorised while_loop
+sites considered,MSA file``), with the compute redesigned for an
+accelerator: the C++ pairsnp call becomes int8 channel-gram GEMMs on the
+device and the transcluster hash-memoised loop becomes a batched
+vectorised while_loop
 (see ops/pairsnp.py, models/transcluster.py).
 """
 
@@ -107,7 +108,7 @@ def distance_parser(parser):
     scale.add_argument(
         "--mesh", dest="mesh", type=str, default=None,
         help="Device mesh for the all-pairs sweep: 'auto' (default: all "
-             "visible TPU chips, data-parallel over DB sample shards), "
+             "visible devices, data-parallel over DB sample shards), "
              "'off' (single device), an explicit 'DPxSP' shape, e.g. "
              "'4x2' = 4 sample shards x 2 genome-position shards, or "
              "'global' (all devices of every process under an SPMD "
@@ -145,8 +146,13 @@ def distance(args):
     # one O(bytes) peek next to the O(n^2 L) work it informs.
     import jax
 
+    import tracs_tpu
     from tracs_tpu.parallel.mesh import resolve_mesh
 
+    # initialise the backends now, so a CPU fallback is refused before the
+    # sweep rather than after it
+    jax.devices()
+    tracs_tpu.check_platform()
     spec = getattr(args, "mesh", None)
     n_peek = w_peek = None
     if len(jax.devices()) > 1 and (

@@ -181,11 +181,11 @@ def _ingest_samples(args, outputdir: str, rows: list[list[str]]) -> None:
 
     * across hosts: under jax.distributed each process takes rows where
       ``i % process_count == process_index`` (shared filesystem assumed,
-      as on a pod slice);
+      as on a cluster);
     * within a host: ``--align-workers`` samples run concurrently in a
       thread pool — the aligner subprocesses (minimap2|samtools|htsbox)
       dominate and release the GIL, so threads scale without fighting the
-      single TPU client the way worker processes would.
+      single accelerator client the way worker processes would.
     """
     import argparse as _argparse
     from concurrent.futures import ThreadPoolExecutor

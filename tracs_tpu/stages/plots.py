@@ -30,14 +30,18 @@ import logging
 import os
 
 import numpy as np
-import pandas as pd
+from scipy.cluster.hierarchy import leaves_list, linkage
 
-import matplotlib
 
-matplotlib.use("Agg")
-import matplotlib.pyplot as plt  # noqa: E402
-from matplotlib.collections import LineCollection  # noqa: E402
-from scipy.cluster.hierarchy import leaves_list, linkage  # noqa: E402
+def _pyplot():
+    """matplotlib.pyplot on the headless Agg backend, imported on first
+    plot: the other stages must not need matplotlib to start."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    return plt
 
 _ALLELES = np.array(list("ACGT"))
 _ALLELE_COLORS = {"A": "#e41a1c", "C": "#377eb8", "G": "#4daf4a", "T": "#984ea3"}
@@ -108,7 +112,7 @@ def _sample_label(path: str) -> str:
 # ---------------------------------------------------------------------------
 
 
-def _symmetric_distance_matrix(df: pd.DataFrame, names: list[str]) -> np.ndarray:
+def _symmetric_distance_matrix(df: "pd.DataFrame", names: list[str]) -> np.ndarray:
     """[n, n] float matrix of the 'SNP distance' column over ``names``.
 
     Direct (A, B) entries win; missing cells fall back to the transposed
@@ -139,6 +143,9 @@ def _single_linkage_order(mat: np.ndarray) -> np.ndarray:
 
 def plot_heatmap(distance_file, outfile, column="SNP distance", threshold=None,
                  height=7, width=10):
+    import pandas as pd
+
+    plt = _pyplot()
     df = pd.read_csv(distance_file)
     if threshold is not None:
         df = df[df[column] <= threshold]
@@ -270,6 +277,8 @@ def _pairwise_frame(count_file_A, count_file_B, fA, fB, min_freq, with_match=Tru
     matrices; rows come out (sample, contig, allele, position)-ordered
     like the reference's melt loop.  Returns a DataFrame or None.
     """
+    import pandas as pd
+
     sa, sb = _Stacked(fA), _Stacked(fB)
     present_a, present_b = sa.freq > 0, sb.freq > 0
     match = present_a & present_b                                   # [L, 4]
@@ -419,6 +428,7 @@ def _scatter_html(pdf, outfile):
 def _scatter_png(pdf, outfile):
     """Static fallback: one panel per (sample, contig), filled markers for
     matching alleles, open markers otherwise."""
+    plt = _pyplot()
     samples = pdf["sample"].unique()
     contigs = pdf["contig"].unique()
     fig, axes = plt.subplots(
@@ -462,6 +472,10 @@ def plot_pairwise_line(count_file_A, count_file_B, outfile, keep_contigs="All",
     subset, 1-based — a reference quirk (its per-contig DataFrame is
     built from the boolean-indexed subset, so reset_index renumbers).
     """
+    import pandas as pd
+    from matplotlib.collections import LineCollection
+
+    plt = _pyplot()
     logging.info("Counting entries in pileup files...")
     contig_length = _contig_lengths(count_file_A, count_file_B, keep_contigs)
 
